@@ -1,4 +1,4 @@
-"""cracks_tpu — a TPU-native phase-field fracture framework.
+"""cracks_tpu — a phase-field fracture framework in JAX.
 
 A from-scratch JAX/XLA reimplementation of the capabilities of the
 pfm-cracks application (Heister/Wheeler/Wick, CMAME 290 (2015) 466-495):
@@ -6,8 +6,8 @@ pfm-cracks application (Heister/Wheeler/Wick, CMAME 290 (2015) 466-495):
  * quasi-monolithic displacement / phase-field formulation,
  * primal-dual active set treatment of crack irreversibility,
  * predictor-corrector mesh adaptivity,
- * parallelism via SPMD sharding of element arrays over a TPU device mesh
-   (instead of MPI + p4est + Trilinos).
+ * parallelism via SPMD sharding of element arrays over an accelerator
+   device mesh (instead of MPI + p4est + Trilinos).
 
 Design: a structured adaptive quad-/octree forest over an unstructured
 coarse root mesh, batched Q1 element quadrature as dense `(n_cells, ...)`
@@ -26,24 +26,23 @@ import jax as _jax
 # instantiated in float32 for speed; the default is double precision.
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: the framework recompiles its kernels per
-# mesh epoch; caching makes repeated runs/test sessions fast.  Set
-# CRACKS_TPU_CACHE to a directory to relocate it, or to the empty
-# string / "0" to disable it entirely.  (The CPU test suite disables
-# it: XLA:CPU's AOT `deserialize_executable` segfaults sporadically in
-# long executable-heavy processes — observed repeatedly in
-# tests/test_regression_adaptive.py full runs — and every CPU cache
-# load also logs a spurious machine-feature-mismatch error for the
-# pseudo-features ±prefer-no-gather/scatter.  TPU runs keep the cache;
-# it is what makes the 1.23M-DoF bench warmup minutes instead of an
-# hour.)
-_cache_dir = _os.environ.get(
-    "CRACKS_TPU_CACHE", _os.path.expanduser("~/.cache/cracks_tpu_xla"))
-if _cache_dir and _cache_dir != "0":
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # pragma: no cover - older jax
-        pass
+
+def compilation_cache_dir(environ=_os.environ) -> str | None:
+    """Directory to give JAX's persistent compilation cache, or None.
+
+    None when ``JAX_COMPILATION_CACHE_DIR`` is set: JAX reads that
+    variable itself and the package must not override it.  Otherwise a
+    fixed ``.jax_cache`` directory in the checkout — the path is part of
+    the cache key, so it must not move between runs.  Disable the cache
+    with JAX's own ``JAX_ENABLE_COMPILATION_CACHE=false``."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    root = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    return _os.path.join(root, ".jax_cache")
+
+
+_cache_dir = compilation_cache_dir()
+if _cache_dir is not None:
+    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
 
 from .config import Parameters, parse_prm, default_parameters  # noqa: E402,F401

@@ -49,6 +49,10 @@ def main(argv=None):
         overrides[key] = type(getattr(load_parameters(argv[0]), key))(value)
 
     p = load_parameters(argv[0], **overrides)
+    import jax
+    devs = jax.devices()
+    print(f"# platform={devs[0].platform} "
+          f"device_kind={devs[0].device_kind} count={len(devs)}")
     print(f"Problem dimension: {p.dimension}")
     # run_prm honors `Resume from` (checkpoint resume) — the CLI must
     # route through it, not construct a fresh Simulation

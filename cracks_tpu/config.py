@@ -163,11 +163,11 @@ class Parameters:
     # CG relative tolerance (matrix-free path)
     cg_rtol: float = 1.0e-12
     cg_maxiter: int = 2000
-    # CG steps per device call (bounded executions for flaky workers)
+    # CG steps per device call of the chunked Krylov solvers
     cg_chunk: int = 100
     # solve the Newton UPDATE systems in float32 (inexact Newton with
     # iterative-refinement flavor): residuals/convergence stay float64,
-    # the Krylov solve runs at TPU-native f32 speed
+    # the Krylov solve runs in f32
     mixed_precision_cg: bool = False
     # CG preconditioner: 'jacobi' or 'gmg' (geometric multigrid)
     preconditioner: str = 'jacobi'
@@ -207,7 +207,8 @@ class Parameters:
     def __post_init__(self):
         # The reference honors `Use Direct Inner Solver` as THE solver
         # selection (cracks.cc:2750-2758); map it onto the backend knob
-        # unless the TPU extension chose a backend explicitly.
+        # unless the "TPU parameters" extension chose a backend
+        # explicitly.
         if self.direct_solver and self.linear_solver == "auto":
             self.linear_solver = "direct"
         if self.outer_solver not in OUTER_SOLVERS:
@@ -296,7 +297,8 @@ _PRM_MAP = {
     ("Solver parameters", "Line search damping"): ("line_search_damping", float),
     ("Solver parameters", "Decompose stress in rhs"): ("decompose_stress_rhs", float),
     ("Solver parameters", "Decompose stress in matrix"): ("decompose_stress_matrix", float),
-    # cracks_tpu extensions (optional subsection)
+    # cracks_tpu extensions (optional subsection; its historical name
+    # "TPU parameters" is part of the .prm schema users write)
     ("TPU parameters", "Linear solver"): ("linear_solver", str),
     ("TPU parameters", "Dtype"): ("dtype", str),
     ("TPU parameters", "CG relative tolerance"): ("cg_rtol", float),

@@ -92,7 +92,7 @@ class System:
         if params.n_devices > 1:
             # SPMD domain decomposition: shard the element arrays over the
             # device mesh; XLA's partitioner parallelizes the jitted
-            # kernels and inserts the ICI collectives (the explicit
+            # kernels and inserts the collectives (the explicit
             # shard_map formulation lives in parallel/sharding.py).
             from .parallel import sharding as _sh
             self._device_mesh = _sh.make_device_mesh(
@@ -317,7 +317,7 @@ class Simulation:
                 # (solvers/lattice.py), 2d and 3d.  Multi-chip runs
                 # shard the cell axis over the device mesh and let
                 # GSPMD partition the lattice solve (slice-shift
-                # patterns become halo exchanges over ICI).
+                # patterns become halo exchanges between devices).
                 from .solvers import lattice
                 lay = lattice.detect_tensor_grid(self.mesh)
                 if lay is not None:
@@ -974,7 +974,7 @@ class Simulation:
 def run_prm(path_or_text: str, **overrides):
     """CLI-style entry: run a .prm configuration end to end.
 
-    With `Resume from` set (TPU parameters), the run continues from
+    With `Resume from` set ("TPU parameters" subsection), the run continues from
     the checkpoint instead of initial values."""
     from .config import load_parameters
     p = load_parameters(path_or_text, **overrides)

@@ -1,6 +1,6 @@
 """Adaptive quad-/octree forest over an unstructured coarse root mesh.
 
-This is the TPU-native replacement for p4est + deal.II's distributed
+This is the array-native replacement for p4est + deal.II's distributed
 triangulation/DoFHandler (reference cracks.cc:1083, 1579-1680,
 3895-4163): a forest of structured quadtrees/octrees, one per coarse
 ("root") cell, with

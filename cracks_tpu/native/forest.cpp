@@ -1,6 +1,6 @@
 // Native forest core: canonical lattice-point keys.
 //
-// This is the TPU-framework's native-runtime analogue of p4est (a C
+// This is the framework's native-runtime analogue of p4est (a C
 // library in the reference stack, SURVEY.md section 2b: deal.II's
 // parallel::distributed::Triangulation delegates octree administration
 // to p4est, cracks.cc:1083).  The hot mesh-administration primitive of

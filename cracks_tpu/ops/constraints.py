@@ -2,8 +2,8 @@
 
 Replaces deal.II AffineConstraints (reference cracks.cc:1630-1642,
 2439-2464).  Solution layout is flat: u is (n_v*dim,) with dof index
-vertex*dim + component, phi is (n_v,) — 1-D vectors avoid TPU tile
-padding (see ops/physics.py docstring).
+vertex*dim + component, phi is (n_v,) (see ops/physics.py
+docstring).
 
 All constraints in the Newton update system are homogeneous (the
 reference's inhomogeneous initial boundary values are written into the

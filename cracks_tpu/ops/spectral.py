@@ -71,7 +71,7 @@ def eigen_2x2_sym(E):
 
 
 def stress_split_components(exx, exy, eyy, lam_coeff, mu_coeff):
-    """Component form of the Miehe split (TPU-friendly: operates on
+    """Component form of the Miehe split (array-friendly: operates on
     arbitrary-shaped scalar component arrays, no small trailing matrix
     dims).  Returns ((sp_xx, sp_xy, sp_yy), (sm_xx, sm_xy, sm_yy)).
 

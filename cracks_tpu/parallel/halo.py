@@ -3,7 +3,7 @@
 The replicated-vector SPMD path (parallel/sharding.py) keeps every DoF
 vector whole on every chip and combines raw residuals with a full-size
 ``psum`` — exact, but each chip stores O(n_dofs) state and every combine
-moves O(n_dofs) over the ICI.  This module is the TPU-native analogue of
+moves O(n_dofs) between devices.  This module is the JAX analogue of
 the reference's ghosted Trilinos vectors + compress(add)
 (cracks.cc:2147-2154, 2470-2475): each shard OWNS a contiguous
 Morton-range of cells and the vertices attached to them, stores only its
@@ -29,7 +29,7 @@ interpolation H and its transpose H^T are applied shard-locally (the
 flat ops/constraints.py stencils in local indices), and the same pool
 exchange combines the distributed master rows — deal.II's ghosted
 AffineConstraints::distribute_local_to_global pattern
-(cracks.cc:2439-2464) on the TPU pool primitive.  Like the flat path,
+(cracks.cc:2439-2464) on the pool primitive.  Like the flat path,
 constraint chains (a master that is itself hanging) are assumed absent
 (the 2:1 CONNECT_FULL balance guarantees it; mesh.py).
 """

@@ -1,5 +1,5 @@
 """Multi-chip SPMD: domain decomposition of the element arrays over a
-TPU device mesh.
+device mesh.
 
 This replaces the reference's MPI + p4est partitioning + Trilinos
 ghosted vectors (SURVEY.md section 2c/2d): the one parallelism axis of a
@@ -7,20 +7,20 @@ phase-field FEM code is *spatial* data parallelism over mesh cells.
 
 Mapping (round 1 — replicated DoF vectors):
  * element arrays (gather maps, JxW, grads, material fields) are sharded
-   along the cell axis (the LAST axis, per the TPU layout convention in
+   along the cell axis (the LAST axis, per the layout convention in
    ops/physics.py) across the device mesh — cells are pre-sorted in
    space-filling-curve order per root, so contiguous shards are
    spatially compact (the analogue of a p4est partition);
  * solution vectors are replicated; the scatter-add of per-shard
-   residuals is combined with a `psum` over the ICI — the analogue of
+   residuals is combined with a `psum` across devices — the analogue of
    Trilinos compress(VectorOperation::add) (cracks.cc:2470-2475);
  * scalar reductions (dot products in CG, norms) run on replicated
    vectors, so no further collectives are needed.
 
 This is exact (bit-identical modulo reduction order) w.r.t. the
 single-device path.  A halo-exchange variant with sharded DoF vectors
-(ppermute over ICI) is the planned next optimization for >100M-DoF runs
-where replication no longer fits HBM.
+(ppermute between devices) is the planned next optimization for
+>100M-DoF runs where replication no longer fits device memory.
 """
 
 from __future__ import annotations
@@ -52,23 +52,20 @@ def make_device_mesh(n_devices: int | None = None,
                      dcn: int = 1) -> Mesh:
     """Device mesh for the cell-axis domain decomposition.
 
-    dcn=1 (default): a flat ("cells",) mesh — every collective rides
-    the ICI.  dcn>1: a host-major ("dcn", "cells") PRODUCT mesh for
-    multi-host topologies (e.g. 4x v5e-8 slices = dcn=4): the cell
-    axis is sharded over BOTH axes jointly (cell_axis()), so the
-    partition is identical to the flat mesh — `jax.devices()` orders
-    devices process-major, so contiguous Morton slabs land on chips
-    within one host first — but XLA now knows which collective hops
-    cross DCN and lowers reductions hierarchically (intra-slice
-    reduce over ICI, one inter-host exchange over DCN).  The traffic
-    pattern this buys: the slab-boundary halo rows exchanged by the
-    lattice solve's shifted-window slices are intra-host everywhere
-    except at the dcn-1 host boundaries — surface-of-surface over DCN,
-    exactly the multi-host layout rule of the scaling playbook (keep
-    the fast-changing axis on ICI).  This is the same program
-    multi-host JAX runs after jax.distributed.initialize(); the dcn
-    axis is how the bench and the dryrun validate that layout without
-    multi-host hardware."""
+    dcn=1 (default): a flat ("cells",) mesh — every device reaches
+    every other at the same rate (NVLink on one host), so the mesh
+    follows the algorithm alone.  dcn>1: a host-major ("dcn", "cells")
+    PRODUCT mesh for multi-host topologies: the cell axis is sharded
+    over BOTH axes jointly (cell_axis()), so the partition is identical
+    to the flat mesh — `jax.devices()` orders devices process-major, so
+    contiguous Morton slabs land on devices within one host first — but
+    XLA now knows which collective hops cross hosts and lowers
+    reductions hierarchically (intra-host reduce, one inter-host
+    exchange).  The slab-boundary halo rows exchanged by the lattice
+    solve's shifted-window slices are then intra-host everywhere except
+    at the dcn-1 host boundaries.  This is the same program multi-host
+    JAX runs after jax.distributed.initialize(); the dcn axis is how the
+    dry run validates that layout without multi-host hardware."""
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
@@ -176,7 +173,7 @@ def shard_cell_arrays(ca: physics.CellArrays, mesh: Mesh) -> physics.CellArrays:
 def sharded_residual_fn(mesh: Mesh, *, dim: int, with_split: bool,
                         monolithic: bool):
     """Build the SPMD residual: each shard assembles its cells' raw
-    residual into a full-size vector; psum over ICI combines them."""
+    residual into a full-size vector; a psum across devices combines them."""
 
     ax = cell_axis(mesh)
 
@@ -209,7 +206,7 @@ def make_multichip_newton_step(mesh: Mesh, con, hang_mask, diag_mass,
                                c_weight, *, dim: int, with_split: bool,
                                monolithic: bool, cg_iters: int = 30):
     """One full jitted PDAS Newton step with the element arrays sharded
-    over the device mesh: sharded residual assembly (+psum over ICI),
+    over the device mesh: sharded residual assembly (+psum across devices),
     on-device active-set update, and a block-triangular CG solve whose
     matrix-vector products run SPMD.
 

@@ -1,4 +1,4 @@
-"""Stored-element-matrix Krylov operator (the TPU 'assembled' path).
+"""Stored-element-matrix Krylov operator (the 'assembled' path).
 
 The reference assembles a Trilinos block sparse matrix once per Newton
 iteration and every GMRES iteration is a sparse matvec
@@ -7,10 +7,10 @@ recomputed the full physics Jacobian-vector product (including the
 spectral-split linearization) on every Krylov iteration — exact, but
 each iteration cost a full element-kernel sweep.
 
-This module is the TPU-native analogue of "assemble once, matvec many":
+This module is the JAX analogue of "assemble once, matvec many":
 the per-cell dense Newton Jacobians (ndl x ndl, ndl = 2^dim*(dim+1))
 are computed ONCE per Newton iteration (vmapped jacfwd of the element
-residual, cell-axis-last so HBM tiling stays dense) and every Krylov
+residual, cell-axis-last, see ops/physics.py) and every Krylov
 iteration is then
 
     gather (ndl, n_c) -> batched dense (ndl x ndl) matvec -> scatter-add
@@ -59,7 +59,8 @@ def matvec_uu(jac_cl, ca: physics.CellArrays, x, *, dim: int):
     nvc = ca.gather_p.shape[0]
     nud_l = nvc * dim
     xe = x[ca.gather_u]                                     # (nud_l, c)
-    ye = jnp.einsum("ijc,jc->ic", jac_cl[:nud_l, :nud_l], xe)
+    ye = jnp.einsum("ijc,jc->ic", jac_cl[:nud_l, :nud_l], xe,
+                    precision=jax.lax.Precision.HIGHEST)
     return jnp.zeros_like(x).at[ca.gather_u].add(ye)
 
 
@@ -67,7 +68,8 @@ def matvec_pp(jac_cl, ca: physics.CellArrays, x, *, dim: int):
     nvc = ca.gather_p.shape[0]
     nud_l = nvc * dim
     xe = x[ca.gather_p]                                     # (nvc, c)
-    ye = jnp.einsum("ijc,jc->ic", jac_cl[nud_l:, nud_l:], xe)
+    ye = jnp.einsum("ijc,jc->ic", jac_cl[nud_l:, nud_l:], xe,
+                    precision=jax.lax.Precision.HIGHEST)
     return jnp.zeros_like(x).at[ca.gather_p].add(ye)
 
 
@@ -76,7 +78,8 @@ def matvec_pu(jac_cl, ca: physics.CellArrays, xu, n_p: int, *, dim: int):
     nvc = ca.gather_p.shape[0]
     nud_l = nvc * dim
     xe = xu[ca.gather_u]
-    ye = jnp.einsum("ijc,jc->ic", jac_cl[nud_l:, :nud_l], xe)
+    ye = jnp.einsum("ijc,jc->ic", jac_cl[nud_l:, :nud_l], xe,
+                    precision=jax.lax.Precision.HIGHEST)
     return jnp.zeros(n_p, dtype=xu.dtype).at[ca.gather_p].add(ye)
 
 

@@ -234,7 +234,10 @@ def build_halo_heads(mesh, part: HaloPartition, *, dim: int,
         return (u_out[None], phi_out[None], tot_p[None], pde_u[None],
                 pde_p[None], res, k)
 
-    return initial_assemble, head, line_search
+    # jitted whole: an eager shard_map dispatches (and compiles) every
+    # primitive of its body one at a time
+    return (jax.jit(initial_assemble), jax.jit(head),
+            jax.jit(line_search))
 
 
 def build_halo_cg(mesh, part: HaloPartition, *, dim: int,
@@ -270,7 +273,8 @@ def build_halo_cg(mesh, part: HaloPartition, *, dim: int,
             xc = hi_fn(pr["gr_u"](x, arr) if comps == dim
                        else pr["gr_p"](x, arr), arr)
             xe = xc[gather]
-            ye = jnp.einsum("ijc,jc->ic", jac[lo:hi, lo:hi], xe)
+            ye = jnp.einsum("ijc,jc->ic", jac[lo:hi, lo:hi], xe,
+                            precision=jax.lax.Precision.HIGHEST)
             y = jnp.zeros_like(x).at[gather].add(ye)
             y = cb_fn(ht_fn(y, arr), arr)
             return jnp.where(free, y, 0.0)
@@ -288,7 +292,7 @@ def build_halo_cg(mesh, part: HaloPartition, *, dim: int,
                             arr)
             xe = xc[ca.gather_u]
             ye = jnp.einsum("ijc,jc->ic", jac[nud_l:nud_l + nvc, 0:nud_l],
-                            xe)
+                            xe, precision=jax.lax.Precision.HIGHEST)
             y = jnp.zeros(free_p.shape, xu.dtype).at[ca.gather_p].add(ye)
             y = pr["cb_p"](pr["ht_p"](y, arr), arr)
             return jnp.where(free_p, y, 0.0)
@@ -342,7 +346,7 @@ def build_halo_cg(mesh, part: HaloPartition, *, dim: int,
         dp, it_p = block_cg(mv_p, bp2, Minv_p)
         return du[None], dp[None], it_u + it_p, pdot(bp2, bp2)
 
-    return solve
+    return jax.jit(solve)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,7 @@ per-cell state whole, and the persistent DoF vectors are row-slab
 sharded.  Assembly, active-set update, line search and the
 split-dispatch GMG solve all run on the sharded lattice state; the
 inter-chip traffic inside the step is the one-row window halo (GSPMD
-collective-permute over ICI — the p4est ghost-layer pattern, surface
+collective-permute between devices — the p4est ghost-layer pattern, surface
 not volume) plus scalar all-reduces for norms and dots.
 
 Boundary representation: vertex-grid extents are odd, so every
@@ -19,10 +19,10 @@ boundary-crossing DoF vector is row-padded to gyp = ceil(GY/D)*D
 the device count, making the slab NamedSharding representable.  Kernels
 slice back to the true grid on entry (lattice._unpad_rows).
 
-Selected by ``dof_sharding = lattice`` (TPU parameters / "DoF
-sharding"); requires the tensor-grid lattice fast path (uniformly
+Selected by ``dof_sharding = lattice`` ("TPU parameters" /
+"DoF sharding"); requires the tensor-grid lattice fast path (uniformly
 refined rect/cube meshes, no hanging nodes) — exactly the regime where
-replication stops fitting HBM.  Seam-glued slit lattices (the
+replication stops fitting device memory.  Seam-glued slit lattices (the
 unit_slit miehe family) are supported: every residual is conjugated
 S^T . S through seam_spread/seam_collect, whose matmul form partitions
 under GSPMD.  Flat global vectors appear only at the solver entry/exit

@@ -6,8 +6,8 @@ Two paths, mirroring the reference's solve() (cracks.cc:2744-2777):
    constraint matrix and LU-factorize, ALL ON DEVICE (one jit).  This
    replaces Trilinos Amesos SolverDirect (cracks.cc:2750-2758) and is
    exact, so it also serves as the correctness oracle for the
-   matrix-free path.  Dense is the right "sparse direct" analogue on
-   TPU (no sparse LU exists there); it is capped at
+   matrix-free path.  Dense is the on-device "sparse direct"
+   analogue (XLA has no sparse LU); it is capped at
    DENSE_DIRECT_MAX_DOFS — larger systems fall back to the tight-
    tolerance Krylov path, which is the sanctioned stand-in (SURVEY
    section 2b: "dense/banded solve on device, or CG with tight tol").
@@ -19,7 +19,7 @@ Two paths, mirroring the reference's solve() (cracks.cc:2744-2777):
    (cracks.cc:2762-2771) we solve A_uu du = b_u and then
    A_pp dpf = b_p - B du with two preconditioned CG iterations — both
    blocks are symmetric positive (semi)definite on the free dofs.  Dot
-   products reduce over ICI when sharded (parallel/).
+   products reduce across devices when sharded (parallel/).
 
 Solution layout is flat (u: (n_v*dim,), phi: (n_v,)); the global dof
 numbering of the monolithic system is [u dofs | phi dofs + n_v*dim].
@@ -162,10 +162,8 @@ def _cg_block_chunk(u, phi, phi_old, phi_oold, ca, sc, con, active,
                     Minv, state, tol2, *, dim, with_split, monolithic,
                     which: str, chunk: int):
     """Advance the PCG iteration on one block by at most `chunk` steps,
-    carrying the exact Krylov state across calls.  Bounding each device
-    call keeps individual XLA executions short (long-running programs
-    can hit runtime limits on shared/preemptible workers) without any
-    mathematical restart."""
+    carrying the exact Krylov state across calls, so the host can check
+    convergence between chunks without any mathematical restart."""
     zero_p = jnp.zeros_like(phi)
     zero_u = jnp.zeros_like(u)
 

@@ -208,7 +208,7 @@ def _chebyshev(op, Dinv, b, lam_max, degree, rng: float = 20.0):
 # Two regimes, keyed on problem size:
 #  * sharp (production, > SHARP_SPECTRUM_MIN_DOFS): m-step Lanczos
 #    lambda_max + narrow smoothing range 4 — cuts CG its/solve ~2x
-#    (PERFORMANCE.md round 4; scripts/iters_experiment.py ladder).
+#    (scripts/iters_experiment.py ladder, scripts/iters_r4.json).
 #  * pinned (golden-size problems): the original Gershgorin bound +
 #    range 20.  NOT a correctness split — both regimes satisfy the
 #    same solve tolerances — but the PDAS has marginal-dof basin

@@ -1,7 +1,7 @@
 """Measure linear-solver effort (CG its/solve) on the Sneddon lattice
 path at a configurable refinement, on CPU.  Drives the production
 split-dispatch solve (FUSED_MAX_DOFS=0) so pass structure matches the
-TPU bench.  Usage:
+bench at production sizes.  Usage:
   JAX_PLATFORMS=cpu CRACKS_TPU_FUSED_MAX_DOFS=0 python scripts/iters_experiment.py [refine]
 """
 import os

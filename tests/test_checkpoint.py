@@ -56,10 +56,11 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_cli_checkpoint_and_resume_matches_uninterrupted(tmp_path):
-    """The driver-reachable path (Checkpoint every / Resume from TPU
-    parameters): run 4 steps with a rolling checkpoint every 2 steps,
-    resume the step-2 snapshot to step 4, and require the resumed
-    statistics table to match the uninterrupted run digit-for-digit
+    """The driver-reachable path (Checkpoint every / Resume from in the
+    "TPU parameters" subsection): run 4 steps with a rolling checkpoint
+    every 2 steps, resume the step-2 snapshot to step 4, and require the
+    resumed statistics table to match the uninterrupted run
+    digit-for-digit
     (same formatting; the checkpoint also carries the statistics rows
     so the rewritten file keeps its history)."""
     from cracks_tpu.driver import run_prm

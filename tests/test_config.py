@@ -107,7 +107,7 @@ def test_dump_roundtrip():
 
 def test_direct_inner_solver_honored():
     """`Use Direct Inner Solver = true` must select the direct backend
-    (cracks.cc:2750-2758) unless the TPU extension overrides it."""
+    (cracks.cc:2750-2758) unless the "TPU parameters" extension overrides it."""
     base = """
 subsection Solver parameters
   set Use Direct Inner Solver = true
@@ -119,7 +119,8 @@ end
     p = load_parameters(base)
     assert p.direct_solver is True
     assert p.linear_solver == "direct"
-    # an explicit TPU backend choice wins over the reference flag
+    # an explicit backend choice ("TPU parameters") wins over the
+    # reference flag
     p2 = load_parameters(base + """
 subsection TPU parameters
   set Linear solver = cg

@@ -297,3 +297,142 @@ def test_split_solve_operator_reuse(monkeypatch):
     lat._solve_split(sys_, hier, u, phi + 1e-3, phi_old, phi_oold, con,
                      active, rhs_u, rhs_p, sys_.with_split)
     assert n_calls["prepare64"] == 2
+
+
+def _dense_block(jacL, lo, hi, k, grid):
+    """Dense f64 matrix of one lattice block, assembled cell by cell
+    (comp-major global dofs d * n_vert + flat vertex, matching the
+    (k, *grid) layout of lattice vectors)."""
+    dim = len(grid)
+    offs = lat._offsets(dim)
+    nvert = int(np.prod(grid))
+    J = np.asarray(jacL, np.float64)
+    A = np.zeros((k * nvert, k * nvert))
+    for c in np.ndindex(*(g - 1 for g in grid)):
+        gdof = [d * nvert + int(np.ravel_multi_index(
+                    tuple(ci + oi for ci, oi in zip(c, o)), grid))
+                for o in offs for d in range(k)]
+        A[np.ix_(gdof, gdof)] += J[(slice(lo, hi), slice(lo, hi)) + c]
+    return A
+
+
+@pytest.mark.parametrize("grid,which", [((5, 7), "u"), ((5, 7), "p"),
+                                        ((4, 5, 6), "u"),
+                                        ((4, 5, 6), "p")])
+def test_matvec_matches_dense_f64(grid, which):
+    """The XLA slice matvec (f32, Precision.HIGHEST) against a dense
+    f64 matrix assembled from the same element matrices."""
+    dim = len(grid)
+    k, lo, hi = lat._blk(which, dim)
+    ndl = 2 ** dim * (dim + 1)
+    rng = np.random.default_rng(dim * 10 + k)
+    jacL = jnp.asarray(rng.normal(size=(ndl, ndl) + tuple(
+        g - 1 for g in grid)), jnp.float32)
+    X = jnp.asarray(rng.normal(size=(k,) + grid), jnp.float32)
+    y = np.asarray(jax.jit(lat.matvec, static_argnums=(2, 3, 4))(
+        jacL, X, lo, hi, k), np.float64)
+    y_ref = _dense_block(jacL, lo, hi, k, grid) @ np.asarray(
+        X, np.float64).reshape(-1)
+    err = np.linalg.norm(y.reshape(-1) - y_ref) / np.linalg.norm(y_ref)
+    assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("which", ["u", "p"])
+def test_smoke_matvec_reference_matches_dense_f64(which):
+    """chip_smoke.py's plain f64 stencil (the on-card reference of the
+    matvec phase) against the dense f64 block on a non-square grid."""
+    import importlib.util
+
+    from .regression import REPO_ROOT
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", f"{REPO_ROOT}/chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    grid = (6, 9)
+    k, lo, hi = lat._blk(which, 2)
+    rng = np.random.default_rng(7 + k)
+    jacL = jnp.asarray(rng.normal(size=(12, 12, 5, 8)), jnp.float32)
+    X = jnp.asarray(rng.normal(size=(k,) + grid), jnp.float32)
+    y = np.asarray(smoke._matvec_reference(jacL, X, lo, hi, k))
+    y_ref = _dense_block(jacL, lo, hi, k, grid) @ np.asarray(
+        X, np.float64).reshape(-1)
+    np.testing.assert_allclose(y.reshape(-1), y_ref, rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("grid", [(17, 9), (17, 5, 6)])
+def test_sharded_matvec_matches_unsharded(grid):
+    """The slice matvec on an 8-device row-slab layout (element
+    matrices split along the leading cell axis, row-padded vectors
+    split along the leading grid axis, as in the lattice-sharded
+    solve) reproduces the single-device result."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from cracks_tpu.parallel.sharding import make_device_mesh
+
+    mesh = make_device_mesh(8)
+    dim = len(grid)
+    k, lo, hi = lat._blk("u", dim)
+    ndl = 2 ** dim * (dim + 1)
+    rng = np.random.default_rng(dim)
+    jacL = jnp.asarray(rng.normal(size=(ndl, ndl) + tuple(
+        g - 1 for g in grid)), jnp.float32)
+    X = jnp.asarray(rng.normal(size=(k,) + grid), jnp.float32)
+    gy = grid[0]
+    gyp = -(-gy // 8) * 8
+    spec_x = P(None, "cells", *([None] * (dim - 1)))
+    ns_x = NamedSharding(mesh, spec_x)
+    ns_j = NamedSharding(mesh, P(None, None, "cells",
+                                 *([None] * (dim - 1))))
+
+    @jax.jit
+    def sharded(J, Xp):
+        Y = lat.matvec(J, lat._unpad_rows(Xp, gy), lo, hi, k)
+        return lat._pad_rows(Y, gyp, ns_x)
+
+    Jd = jax.device_put(jacL, ns_j)
+    Xd = jax.device_put(lat._pad_rows(X, gyp), ns_x)
+    Y = sharded(Jd, Xd)
+    assert len(Y.sharding.device_set) == 8
+    assert {s.data.shape[1] for s in Y.addressable_shards} == {gyp // 8}
+    y_ref = lat.matvec(jacL, X, lo, hi, k)
+    np.testing.assert_allclose(np.asarray(Y)[:, :gy], np.asarray(y_ref),
+                               rtol=1e-6, atol=1e-6)
+
+
+def _dot_precisions(jaxpr):
+    """precision params of every dot_general in a jaxpr, recursively."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            sub = getattr(v, "jaxpr", v)
+            if hasattr(sub, "eqns"):
+                out += _dot_precisions(sub)
+    return out
+
+
+@pytest.mark.parametrize("op", ["matvec_block", "coarsen", "seam"])
+def test_f32_contractions_at_highest_precision(op):
+    """Every f32 contraction of the lattice solve chain asks for
+    Precision.HIGHEST (a GPU may otherwise run it in TF32)."""
+    from cracks_tpu.solvers.galerkin import embedding_matrices
+
+    f32 = jnp.float32
+    jac = jnp.ones((12, 12, 4, 4), f32)
+    X = jnp.ones((2, 5, 5), f32)
+    fns = {
+        "matvec_block": lambda: lat.matvec_block(jac, X, 8, 12, 0, 8,
+                                                 2, 1),
+        "coarsen": lambda: lat.coarsen(
+            jac, jnp.asarray(embedding_matrices(2), f32)),
+        "seam": lambda: lat.seam_collect(
+            lat.seam_spread(X, lat.Seam(s=2, slit_lo=1)),
+            lat.Seam(s=2, slit_lo=1)),
+    }
+    precs = _dot_precisions(jax.make_jaxpr(fns[op])().jaxpr)
+    assert precs, "no contraction traced"
+    hi = jax.lax.Precision.HIGHEST
+    assert all(p is not None and tuple(p) == (hi, hi) for p in precs), \
+        precs

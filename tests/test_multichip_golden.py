@@ -5,7 +5,7 @@ This is the analogue of the reference's np1/np2 golden pair
 (tests/miehe_shear_2.statistics vs .mpirun=2.statistics, compared with
 numdiff -a 1e-6 -r 1e-8, tests/run_test.sh:13): the same simulation is
 run with the element arrays sharded over all 8 virtual devices
-(driver System n_devices=8, GSPMD partitioning with ICI collectives
+(driver System n_devices=8, GSPMD partitioning with cross-device collectives
 inserted by XLA) through the FULL production stack — PDAS active-set
 Newton, stored-element-matrix CG, Galerkin GMG preconditioner — and
 the statistics table must agree with the 1-device run and the golden

@@ -31,7 +31,7 @@ def test_sneddon_3d_full(tmp_path):
 
 def test_hetero_3d_gmg_iterations(tmp_path):
     """3d + heterogeneous bitmap material + hanging nodes through the
-    Galerkin GMG (the BASELINE.json v5e-8 north-star workload in
+    Galerkin GMG (the BASELINE.json north-star workload in
     miniature).  Reference effort: 14-20 linear its per step at the
     same DoF count under ML AMG (tests/hetero_3d_1.mpirun-4.output:
     36,54); bound <= 3x that per Newton solve."""

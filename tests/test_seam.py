@@ -204,7 +204,7 @@ def test_seam_galerkin_coarsening_identity(which, lo, hi, k):
 def _miehe_sim(max_steps=2):
     """The shipped miehe_shear_2 config truncated to two load steps
     (step >= 1 turns the split matrix on), on the lattice-eligible
-    GMG + mixed-precision solver knobs (the bench's TPU overrides; the
+    GMG + mixed-precision solver knobs (the bench's solver overrides; the
     prm itself selects the direct inner solver)."""
     import os
     from cracks_tpu.config import load_parameters

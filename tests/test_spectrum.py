@@ -3,7 +3,7 @@
 The production smoother uses an m-step Lanczos lambda_max + smoothing
 range 4 above multigrid.SHARP_SPECTRUM_MIN_DOFS; golden-size problems
 keep the Gershgorin+range-20 window that pins the reference's PDAS
-basin (policy + measurements: multigrid.py, PERFORMANCE.md round 4).
+basin (policy + measurements: multigrid.py, scripts/iters_r4.json).
 """
 
 import numpy as np
